@@ -79,5 +79,5 @@ err = np.max(np.abs(fused_field - staged_field)) / np.max(np.abs(staged_field))
 print(f"fused RepeatSpec vs staged chain: max rel err = {err:.2e}")
 # 8 x 80 km at h=1 km is 1280 float32 FFTs; the fused scan (one compiled
 # graph) and the 8 separately-compiled staged programs round differently,
-# and the gap is platform-dependent: ~1e-5 on CPU, ~1e-3 on the TPU FFT.
+# and the gap depends on the platform's FFT rounding (~1e-5 on CPU).
 assert err < 5e-3

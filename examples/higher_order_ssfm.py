@@ -7,14 +7,6 @@ error each achieves per FFT pair spent.
 
 Run: python examples/higher_order_ssfm.py
 """
-import jax
-
-# this demo works at a tiny 4096-sample size and calls the ops layer
-# directly (below the device layer's small-op CPU router), so force the
-# in-process CPU backend — on a remote accelerator runtime every scheme
-# variant would otherwise pay a multi-second remote compile
-jax.config.update("jax_platforms", "cpu")
-
 try:  # running from a source checkout without an install
     import opticomlib_tpu  # noqa: F401
 except ModuleNotFoundError:

@@ -1,6 +1,6 @@
 """OOK 10 Gbps transmission over 50 km of fiber (BASELINE configs 1-2).
 
-TPU-native equivalent of the reference's canonical example
+JAX equivalent of the reference's canonical example
 (reference examples/ook_transmission_fiber_simulation.py): the full
 PRBS -> DAC -> LASER -> MZM -> FIBER -> PD -> DSP -> BER chain.
 

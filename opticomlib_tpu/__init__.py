@@ -1,7 +1,7 @@
-"""opticomlib_tpu — TPU-native optical communications simulation framework.
+"""opticomlib_tpu — optical communications simulation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference ``opticomlib`` package (mounted read-only at /root/reference):
+A from-scratch JAX/XLA re-design with the capabilities of the pure-NumPy
+reference package ``opticomlib``:
 the full transmit -> channel -> receive chain — PRBS, DAC pulse shaping,
 MZM/PM modulation, split-step Fourier NLSE fiber propagation, DBP
 equalization, PIN detection, Bessel filtering, eye/BER metrology — plus what

@@ -1,10 +1,10 @@
 """Device library: the TX -> channel -> RX simulation chain.
 
-TPU-native re-implementation of the reference device layer
+JAX re-implementation of the reference device layer
 (reference: opticomlib/devices.py).  Every device keeps the reference's
 call signature, parameter semantics, and physics; the numerics run through
-:mod:`opticomlib_tpu.ops` (JAX/XLA on TPU for the FFT-heavy paths, NumPy on
-host for cheap metadata work).  Per-device wall-clock is recorded on the
+:mod:`opticomlib_tpu.ops` (JAX/XLA on the default device for the FFT-heavy
+paths, NumPy on host for cheap metadata work).  Per-device wall-clock is recorded on the
 returned object as ``execution_time`` for parity with the reference's
 tic/toc instrumentation (reference devices.py:133/178 et al.).
 
@@ -42,7 +42,6 @@ from scipy.constants import c, e, h, k as kB, pi
 
 from . import rng
 from .eyediag import Eye, eye
-from .runtime import backend as _backend
 from .ops import eyeana, filters, noise as noise_ops, prbs as prbs_ops, \
     pulses, ssfm
 from .params import gv
@@ -145,9 +144,9 @@ def DAC(input, pulse_shape: str = "nrz", coupling: str = "DC",
 
     Notes
     -----
-    The convolution runs as an FFT product padded to a power of two on
-    the TPU backend — measured 13x faster than 5-smooth padding
-    (docs/performance.md).  For the fully fused TX path use
+    The convolution runs as an FFT product padded to the next 5-smooth
+    length (:func:`opticomlib_tpu.ops.pulses.fft_convolve_same`).  For
+    the fully fused TX path use
     :func:`opticomlib_tpu.link.build_link`, which folds this shaping
     into the one-program chain as a circular spectral multiply.
     """
@@ -270,12 +269,7 @@ def LASER(P0, lw: Optional[float] = None, rin: Optional[float] = None,
 
     key = rng.resolve(key)
     if key is not None:
-        # split on CPU (key math is backend-invariant and a remote
-        # compile round trip for it is pure waste); the draw kernels
-        # move the subkeys to their compute device (ops/noise.py)
-        cpu = _backend.cpu_scope()
-        with cpu:
-            k_ph, k_rin = jax.random.split(cpu.put(key))
+        k_ph, k_rin = jax.random.split(key)
 
     if lw is not None:
         # lw == 0 still consumes t.size draws (zero-variance walk), keeping
@@ -602,9 +596,8 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     Notes
     -----
     Step count scales as ``gamma * maxP * length / phi_max``; each step
-    costs two full-length complex FFTs plus fused pointwise work —
-    ~14 M samples/s at 2^24 samples on one TPU chip (docs/
-    performance.md).  For checkpoint/resume of very long spans see
+    costs two full-length complex FFTs plus fused pointwise work.  For
+    checkpoint/resume of very long spans see
     :func:`opticomlib_tpu.runtime.ssfm_propagate_resumable` (host path)
     and ``ssfm_sharded(ckpt_dir=...)`` (mesh path).
     """
@@ -645,55 +638,44 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     A = input.to_numpy().astype(np.complex64)
     w = input.w()
 
-    # small waveforms run on the in-process CPU backend: on a remote
-    # accelerator runtime the per-program compile/upload cost (judge-
-    # measured 70 s for this one jitted loop at 2^16 samples) dwarfs the
-    # compute below ~2^20 samples (see runtime/backend.py)
-    with _backend.route(A.size):
-        if method == "o4":
-            if return_steps:
-                raise ValueError("return_steps is only available with "
-                                 "method='reference'.")
-            if h is None:
-                result = ssfm.ssfm_o4_auto(
-                    A, w, float(length), alpha=float(alpha),
-                    beta_2=float(beta_2), beta_3=float(beta_3),
-                    gamma=float(gamma), tol=float(tol))
-            else:
-                result = ssfm.ssfm_scan_o4(
-                    A, w, float(length), alpha=float(alpha),
-                    beta_2=float(beta_2), beta_3=float(beta_3),
-                    gamma=float(gamma), h=float(h))
-        elif method == "local_error":
-            if return_steps:
-                raise ValueError("return_steps is only available with "
-                                 "method='reference'.")
-            result, _ = ssfm.ssfm_local_error(
+    if method == "o4":
+        if return_steps:
+            raise ValueError("return_steps is only available with "
+                             "method='reference'.")
+        if h is None:
+            result = ssfm.ssfm_o4_auto(
                 A, w, float(length), alpha=float(alpha),
                 beta_2=float(beta_2), beta_3=float(beta_3),
-                gamma=float(gamma), tol=float(tol),
-                h0=None if h is None else float(h))
+                gamma=float(gamma), tol=float(tol))
         else:
-            progress = show_progress and not return_steps
-            if progress and not ssfm.callbacks_supported():
-                warnings.warn(
-                    "show_progress needs device->host callbacks, which "
-                    "this JAX backend does not support; running without a "
-                    "progress bar.", RuntimeWarning)
-                progress = False
+            result = ssfm.ssfm_scan_o4(
+                A, w, float(length), alpha=float(alpha),
+                beta_2=float(beta_2), beta_3=float(beta_3),
+                gamma=float(gamma), h=float(h))
+    elif method == "local_error":
+        if return_steps:
+            raise ValueError("return_steps is only available with "
+                             "method='reference'.")
+        result, _ = ssfm.ssfm_local_error(
+            A, w, float(length), alpha=float(alpha),
+            beta_2=float(beta_2), beta_3=float(beta_3),
+            gamma=float(gamma), tol=float(tol),
+            h0=None if h is None else float(h))
+    else:
+        progress = show_progress and not return_steps
 
-            def _run():
-                return ssfm.ssfm_propagate(
-                    A, w, length=float(length), alpha=float(alpha),
-                    beta_2=float(beta_2), beta_3=float(beta_3),
-                    gamma=float(gamma), phi_max=float(phi_max),
-                    h=None if h is None else float(h),
-                    return_steps=return_steps, progress=progress)
-            if progress:
-                with ssfm.progress_bar():
-                    result = _run()
-            else:
+        def _run():
+            return ssfm.ssfm_propagate(
+                A, w, length=float(length), alpha=float(alpha),
+                beta_2=float(beta_2), beta_3=float(beta_3),
+                gamma=float(gamma), phi_max=float(phi_max),
+                h=None if h is None else float(h),
+                return_steps=return_steps, progress=progress)
+        if progress:
+            with ssfm.progress_bar():
                 result = _run()
+        else:
+            result = _run()
 
     if return_steps:
         toc()  # balance the timer stack (no result object to annotate)
@@ -845,9 +827,7 @@ def PD(input: OpticalSignal, BW: float, r: float = 1.0, T: float = 300.0,
 
     key = rng.resolve(key)
     if key is not None:
-        cpu = _backend.cpu_scope()
-        with cpu:
-            k_T, k_N = jax.random.split(cpu.put(key))
+        k_T, k_N = jax.random.split(key)
 
     i_T = i_N = None
     if "thermal" in include_noise or include_noise == "all":
@@ -1247,8 +1227,7 @@ def FBG(input: OpticalSignal, neff: float = 1.45, v: float = 1.0,
     # unit z; RK4 needs several steps per radian.
     rate = float(np.max(np.abs(delta) + np.abs(s)) + abs(F) / 2 + np.max(np.abs(k)))
     n_steps = int(min(max(512, 4 * rate), 200_000))
-    with _backend.route(int(np.size(delta))):
-        R, S = _fbg_rk4(delta, s, k, F, apo_func, n_steps)
+    R, S = _fbg_rk4(delta, s, k, F, apo_func, n_steps)
 
     H = S / R
     y = np.abs(H)

@@ -176,9 +176,10 @@ class FiberSpec:
     reference devices.py:1038-1206).
 
     ``method="o4"`` selects the 4th-order Yoshida composition for this
-    span — the equal-accuracy lever: ~4x fewer FFT pairs than the
-    reference scheme at matched output error (docs/performance.md
-    "Equal-accuracy headline").  With a fixed ``h`` it runs the fixed-
+    span — the equal-accuracy lever: fewer FFT pairs than the reference
+    scheme at matched output error once the target is tight (the
+    matched step sizes are not calibrated on the H100 yet).  With a
+    fixed ``h`` it runs the fixed-
     schedule scan; with ``h=None`` it **self-tunes** via step-doubling
     local-error control targeting relative local error ``tol`` per step
     (no calibration script needed; ops/ssfm.ssfm_o4_auto_inside).
@@ -479,10 +480,9 @@ class LinkProgram:
         # Large length-n arrays are passed to the program as a pytree
         # ARGUMENT (self.consts), not closed over: embedded constants get
         # serialized into the compiled program (hundreds of MB at 2^24
-        # samples, too big for remote-compile transports).  Complex
-        # constants are stored planar (re, im) and recombined in-graph —
-        # complex arrays cannot cross the host<->device boundary on some
-        # TPU runtimes (see ops/ssfm.py "Planar jit boundaries").
+        # samples).  Complex constants are stored planar (re, im) and
+        # recombined in-graph, like every jitted boundary of this package
+        # (see ops/ssfm.py "Planar jit boundaries").
         consts = {}
         hp = _pulse_taps(spec, sps)
         Hp_np = _circular_zero_phase_spectrum(hp, n)

@@ -97,6 +97,20 @@ def _draw_v(keys, shape, sigma):
     return jax.vmap(lambda k: gaussian_inside(k, shape, sigma))(keys)
 
 
+def blockwise_cumsum(x, axis_name: str):
+    """Global cumulative sum along the last axis of a block-sharded
+    ``x`` (lc, block), inside ``shard_map`` over ``axis_name``: the local
+    cumsum plus the sums of the blocks before this one, all-gathered and
+    added as a masked sum (exact in float32, where a matmul may run in
+    TF32 on a GPU)."""
+    q = jax.lax.axis_index(axis_name)
+    n_blocks = jax.lax.axis_size(axis_name)
+    totals = jax.lax.all_gather(x.sum(-1), axis_name)   # (P, lc)
+    before = (jnp.arange(n_blocks) < q)[:, None]
+    prefix = jnp.sum(jnp.where(before, totals, 0.0), axis=0)
+    return jnp.cumsum(x, axis=-1) + prefix[:, None]
+
+
 class ShardedLinkProgram:
     """A fused link compiled over a device mesh.  Same surface as
     :class:`opticomlib_tpu.link.LinkProgram` where it applies:
@@ -332,11 +346,7 @@ class ShardedLinkProgram:
             phase = jnp.zeros((lc, 1), jnp.float32)
             if sigma_ph > 0:
                 steps = _draw_v(_fold_v(k_ph, q), (block,), sigma_ph)
-                local = jnp.cumsum(steps, axis=-1)
-                # prefix over preceding blocks: all_gather block sums
-                totals = jax.lax.all_gather(steps.sum(-1), t_ax)  # (P, lc)
-                mask = (jnp.arange(P_t) < q).astype(jnp.float32)
-                phase = local + (mask @ totals)[:, None]
+                phase = blockwise_cumsum(steps, t_ax)
             if has_df:
                 phase = phase + consts_blk["df_phase"]
             amp = jnp.full((lc, 1), P0_amp, jnp.float32)

@@ -2,7 +2,7 @@
 
 Parity with reference opticomlib/ppm.py (file:line cited per function).
 Encoding/decoding/decision are pure reshape/argmax/scatter ops — directly
-TPU-friendly; the only randomness (HDD symbol repair) uses host NumPy like
+jit-friendly; the only randomness (HDD symbol repair) uses host NumPy like
 the reference, with an optional ``rng`` for reproducibility.
 """
 from __future__ import annotations

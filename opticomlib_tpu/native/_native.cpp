@@ -1,6 +1,6 @@
 // Native runtime helpers for opticomlib_tpu.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library covers the
+// The accelerator owns the compute path (JAX/XLA); this library covers the
 // host-side serial/bit-twiddling work the Python layer would otherwise do
 // in interpreted loops:
 //

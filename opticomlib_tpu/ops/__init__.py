@@ -1,2 +1,2 @@
-"""Compute kernels: JAX/XLA/Pallas implementations of the hot paths."""
+"""Compute kernels: JAX/XLA implementations of the hot paths."""
 from . import eyeana, filters, prbs, pulses, ssfm  # noqa: F401

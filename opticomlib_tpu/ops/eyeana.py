@@ -1,6 +1,6 @@
 """Eye-diagram metrology as vectorized reductions.
 
-TPU-native re-design of the reference's ``GET_EYE`` estimation pipeline
+JAX re-design of the reference's ``GET_EYE`` estimation pipeline
 (reference: opticomlib/devices.py:1635-1868), which leans on
 ``sklearn.cluster.KMeans`` and ``scipy.stats.gaussian_kde``.  Here every
 statistical kernel is re-derived as dependency-free vectorized reductions:
@@ -450,9 +450,11 @@ def _kde_min_threshold_jax(y, mask, mu0, mu1, npts: int = 500,
     centers = lo + (jnp.arange(nbins, dtype=y.dtype) + 0.5) / nbins * width
 
     grid = jnp.linspace(mu0, mu1, npts)
-    # (npts, nbins) Gaussian kernel contraction — MXU-friendly matvec
+    # (npts, nbins) Gaussian kernel contraction; HIGHEST keeps the GPU
+    # from rounding the histogram counts to TF32
     z = (grid[:, None] - centers[None, :]) / bw
-    pdf = jnp.exp(-0.5 * z * z) @ hist
+    pdf = jnp.matmul(jnp.exp(-0.5 * z * z), hist,
+                     precision=jax.lax.Precision.HIGHEST)
     thr = grid[jnp.argmin(pdf)]
     ok = (n_win >= 2) & jnp.isfinite(mu0) & jnp.isfinite(mu1) \
         & (mu0 != mu1) & (bw > 0)

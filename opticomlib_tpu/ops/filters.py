@@ -1,11 +1,11 @@
-"""Zero-phase Bessel filtering, the TPU way.
+"""Zero-phase Bessel filtering as a spectral multiply.
 
 The reference applies 4th-order Bessel IIR filters with
 ``scipy.signal.sosfiltfilt`` (forward-backward, zero phase) for its LPF/BPF
 devices (reference opticomlib/devices.py:1286-1375 and 788-826).  IIR
-recursions are sequential and map terribly onto TPU vector units; but
+recursions are sequential and map badly onto data-parallel hardware; but
 *filtfilt is zero-phase by construction* — its transfer function is exactly
-``|H(w)|^2`` of the designed filter.  So the TPU-native equivalent is an
+``|H(w)|^2`` of the designed filter.  So the data-parallel equivalent is an
 FFT-domain multiply by the (real, nonnegative) squared magnitude response:
 
     y = ifft( fft(x) * |H_bessel(w)|^2 )

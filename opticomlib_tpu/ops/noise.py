@@ -51,25 +51,16 @@ def _wiener(key, n, sigma_step):
 
 
 def gaussian(key, shape, sigma) -> np.ndarray:
-    """Host ndarray of ``sigma * N(0,1)`` draws generated on-device
-    (small draws route to the in-process CPU backend, see
-    runtime/backend.py)."""
-    from ..runtime import backend as _backend
+    """Host ndarray of ``sigma * N(0,1)`` draws generated on the default
+    device."""
     if isinstance(shape, int):
         shape = (shape,)
-    n = int(np.prod(shape))
-    with _backend.route(n) as scope:
-        key = scope.put(key)
-        return np.asarray(_gaussian(key, tuple(shape), float(sigma)))
+    return np.asarray(_gaussian(key, tuple(shape), float(sigma)))
 
 
 def wiener_phase(key, n: int, sigma_step: float) -> np.ndarray:
-    """Host ndarray Wiener phase walk generated on-device (small draws
-    route to the in-process CPU backend, see runtime/backend.py)."""
-    from ..runtime import backend as _backend
-    with _backend.route(int(n)) as scope:
-        key = scope.put(key)
-        return np.asarray(_wiener(key, int(n), float(sigma_step)))
+    """Host ndarray Wiener phase walk generated on the default device."""
+    return np.asarray(_wiener(key, int(n), float(sigma_step)))
 
 
 def ase_power(G_dB: float, NF_dB: float, f0: float, fs: float) -> float:

@@ -1,6 +1,6 @@
 """Pseudorandom binary sequence generation.
 
-TPU-native re-design of the reference LFSR generator
+JAX re-design of the reference LFSR generator
 (reference: opticomlib/devices.py:63-182, which runs a *per-bit Python while
 loop*, devices.py:170-175).  Here we exploit the algebra of the generating
 trinomial instead:

@@ -1,6 +1,6 @@
 """Split-step Fourier NLSE propagation engine (the framework's hot kernel).
 
-TPU-native re-design of the reference's ``FIBER`` solver
+JAX re-design of the reference's ``FIBER`` solver
 (reference: opticomlib/devices.py:1038-1206): symmetric NL-L-NL scheme with
 the nonlinear operator frozen at the step start, adaptive step size limited
 by the maximum nonlinear phase rotation (Sinkin et al. 2003, as in the
@@ -18,12 +18,11 @@ Differences from the reference (CuPy/NumPy host loop):
   sharded array XLA lowers it to an all-reduce(max) over the mesh, which is
   exactly the collective the adaptive scheme requires.
 
-**Planar jit boundaries.** TPUs have no native complex type; on this
-runtime complex arrays cannot cross the host<->device or program boundary
-at all.  Every jitted entry point therefore takes and returns *planar*
-float32 (re, im) pairs and forms ``complex64`` internally with
-``jax.lax.complex`` — which is also the layout XLA prefers (no
-interleave/deinterleave shuffles around the FFT).
+**Planar jit boundaries.** Every jitted entry point takes and returns
+*planar* float32 (re, im) pairs and forms ``complex64`` internally with
+``jax.lax.complex``.  This is a design choice, not a requirement of the
+device: ``complex64`` arrays cross ``jit`` and host<->device boundaries
+intact on the GPU and the CPU (``chip_smoke.py`` checks it).
 
 Step count scales as ``gamma * maxP * L / phi_max``; each step costs two
 complex FFTs of the full window plus a handful of fused pointwise ops.
@@ -56,28 +55,11 @@ _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 # (static flag -> callback not traced in).
 # ----------------------------------------------------------------------
 _progress_handler = None
-_CB_SUPPORTED: Optional[bool] = None
 
 
 def _progress_tick(z, length):  # pragma: no cover - host-side I/O
     if _progress_handler is not None:
         _progress_handler(float(z), float(length))
-
-
-def callbacks_supported() -> bool:
-    """Whether the active backend supports device->host callbacks (some
-    tunneled PJRT plugins do not).  Probed once with a tiny jitted program."""
-    global _CB_SUPPORTED
-    if _CB_SUPPORTED is None:
-        try:
-            def _probe(x):
-                jax.debug.callback(lambda v: None, x)
-                return x
-            jax.block_until_ready(jax.jit(_probe)(jnp.float32(0)))
-            _CB_SUPPORTED = True
-        except Exception:
-            _CB_SUPPORTED = False
-    return _CB_SUPPORTED
 
 
 class progress_bar:
@@ -135,8 +117,7 @@ def dispersion_phase(w_rad_s: np.ndarray, beta2: float,
     real phase and the loss as a *scalar* so the per-step linear factor is
     ``exp(-alpha/2*h) * (cos(phi*h) + i sin(phi*h))`` — one scalar exp plus
     cos/sin, instead of an elementwise complex exp (which XLA lowers to a
-    full vector exp *and* cos/sin).  Measured ~18-26% faster per SSFM step
-    at 2^24 samples on TPU.
+    full vector exp *and* cos/sin).
     """
     w = np.asarray(w_rad_s, dtype=np.float64) * 1e-12  # rad/ps
     phi = beta2 / 2 * w**2 + beta3 / 6 * w**3
@@ -200,9 +181,7 @@ def ssfm_while_inside(A, phi_w, length, gamma, phi_max, h0, alpha,
     h_floor = length * jnp.float32(1.5e-7)
     max_steps = jnp.int32(400_000)  # runaway backstop: far above any real
     # config (~1e4 steps at extreme power), but small enough that a bug
-    # that stalls z-advance releases the accelerator in minutes, not
-    # hours (a killed client does NOT cancel an in-flight program on
-    # remote runtimes)
+    # that stalls z-advance ends the program in minutes, not hours
 
     def cond(carry):
         _, z, _, steps = carry

@@ -7,7 +7,7 @@ its error decays only ~1/H^2 because the dispersion operator's band-edge
 discontinuity rings in the time domain.  This module implements the exact
 alternative from SURVEY.md §7.5: Bailey's four-step FFT across the device
 mesh, using two ``all_to_all`` collectives per transform (XLA lowers them to
-ICI transpose traffic on a TPU slice).
+NCCL all-to-all exchanges between the GPUs).
 
 Decomposition (N = P * B, device p holds the contiguous block
 ``x[p*B : (p+1)*B]``; C = B / P):
@@ -16,7 +16,7 @@ Decomposition (N = P * B, device p holds the contiguous block
                    * sum_{n1} x[n1*B + n2] e^{-2πi n1 k1 / P}
 
 so the chain is: all_to_all transpose (bring all n1 local for a slice of
-n2) -> P-point DFT over the device axis as a tiny matmul (MXU) -> twiddle
+n2) -> P-point DFT over the device axis as a tiny matmul -> twiddle
 -> all_to_all transpose -> local B-point FFT.  The spectrum comes out in
 the *strided* layout: device q holds ``X[q + P*k2]`` for k2 in [0, B).
 That layout is perfectly fine for SSFM — the linear operator is simply
@@ -82,9 +82,11 @@ def pencil_fft(x, axis_name: str):
                            concat_axis=x.ndim - 1, tiled=True)
     # z[..., n1, c] = x_global[n1*B + q*C + c]
 
-    # 2) P-point DFT over the n1 axis (tiny matmul -> MXU on TPU)
+    # 2) P-point DFT over the n1 axis (tiny matmul; HIGHEST keeps the
+    # GPU from running it in TF32, which would cost ~3 decimal digits)
     W1 = _dft_matrix(P, sign=-1.0)
-    y = jnp.einsum("kn,...nc->...kc", W1, z)
+    y = jnp.einsum("kn,...nc->...kc", W1, z,
+                   precision=jax.lax.Precision.HIGHEST)
 
     # 3) twiddle e^{-2πi k1 n2 / N}, n2 = q*C + c
     k1 = jnp.arange(P, dtype=jnp.float32)[:, None]
@@ -128,7 +130,8 @@ def pencil_ifft(X, axis_name: str):
 
     # 2') inverse P-point DFT over k1
     Wi = _dft_matrix(P, sign=+1.0) / P
-    r = jnp.einsum("nk,...kc->...nc", Wi, u)
+    r = jnp.einsum("nk,...kc->...nc", Wi, u,
+                   precision=jax.lax.Precision.HIGHEST)
     # r[..., n1, c] = x[n1*B + q*C + c]
 
     # 1') transpose back to contiguous blocks

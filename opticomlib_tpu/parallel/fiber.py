@@ -1,14 +1,14 @@
 """Sharded split-step Fourier propagation over a device mesh.
 
 The new capability the reference never had (it is single-process NumPy/CuPy,
-reference devices.py:1114-1134): scale the NLSE solve across TPU chips by
+reference devices.py:1114-1134): scale the NLSE solve across devices by
 sharding
 
 * the **time (sample) axis** — the optical-simulation analogue of
   sequence/context parallelism.  Each device owns a contiguous block of the
   waveform; the nonlinear (pointwise) steps need no communication; the
   dispersion steps use blockwise overlap-save with ring halo exchange
-  (``ppermute`` over ICI) — see :mod:`opticomlib_tpu.parallel.halo` for the
+  (``ppermute`` between neighbor devices) — see :mod:`opticomlib_tpu.parallel.halo` for the
   derivation of the halo width;
 * the **WDM channel axis** — embarrassingly parallel (data-parallel
   analogue), a leading array dimension sharded over the 'wdm' mesh axis.
@@ -47,9 +47,9 @@ __all__ = ["make_link_mesh", "ssfm_sharded", "shard_waveform",
 # fractions of 0.001-0.002, because the mesh's all_to_all is
 # shared-memory-cheap while overlap pays a padded local FFT — so the
 # measured threshold is 0.0 and 'auto' resolves to the exact pencil
-# transform unless pencil is infeasible.  On a real multi-chip slice
-# where all_to_all is ICI-bound the crossover can move: re-measure with
-# `bench_shard_crossover.py --tpu` and set
+# transform unless pencil is infeasible.  On GPUs, where all_to_all
+# crosses NVLink, the crossover can move (not measured on the H100 yet):
+# re-measure with `bench_shard_crossover.py --devices` and set
 # OPTICOMLIB_TPU_AUTO_HALO_FRAC to the measured value.
 AUTO_HALO_FRAC = float(os.environ.get(
     "OPTICOMLIB_TPU_AUTO_HALO_FRAC", "0.0"))

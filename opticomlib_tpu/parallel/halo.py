@@ -19,7 +19,7 @@ semantics of the reference's single-FFT linear step
 single-device result as the halo grows.
 
 Halo exchange is ``jax.lax.ppermute`` over the 'time' mesh axis — XLA lowers
-it to neighbor ICI transfers on a TPU slice (no host involvement).
+it to device-to-device transfers between neighbors (no host involvement).
 """
 from __future__ import annotations
 

@@ -1,33 +1,34 @@
-"""Multi-host initialization for pod-slice runs.
+"""Multi-host initialization for runs that span several GPU hosts.
 
 The sharded runtime (``ssfm_sharded``, ``ShardedLinkProgram``,
 ``span_pipeline``) is written against a :class:`jax.sharding.Mesh` and
-works unchanged on a multi-host TPU slice: ``jax.devices()`` returns the
-GLOBAL device list once the distributed runtime is initialized, the
-meshes built by :func:`opticomlib_tpu.parallel.fiber.make_link_mesh`
-then span hosts, and XLA routes the collectives (``all_to_all`` pencil
-transposes, ``ppermute`` halos, ``pmax`` adaptive reductions) over ICI
-within a slice and DCN across slices — no code changes.
+works unchanged across hosts: ``jax.devices()`` returns the GLOBAL
+device list once the distributed runtime is initialized, the meshes
+built by :func:`opticomlib_tpu.parallel.fiber.make_link_mesh` then span
+hosts, and XLA routes the collectives (``all_to_all`` pencil
+transposes, ``ppermute`` halos, ``pmax`` adaptive reductions) over
+NVLink within a host and the network across hosts — no code changes.
 
-This module only wraps the standard bring-up so a pod run is one call
-per process:
+This module only wraps the standard bring-up so a multi-host run is one
+call per process.  GPU hosts discover nothing from the environment:
+pass the coordinator's address, the process count and this process's
+index explicitly:
 
     # on every host (same script, per-host process_id):
     from opticomlib_tpu.parallel import initialize_multihost, make_link_mesh
-    initialize_multihost()                       # env-driven on TPU pods
+    initialize_multihost("host0:12345", num_processes=4, process_id=i)
     mesh = make_link_mesh(n_wdm=4)               # global devices
     prog = build_link(spec, n_bits, mesh=mesh)   # same API as 1 host
     sweep = prog.dsp_wdm(16, seed=0)
 
 Sizing guidance (BASELINE config 5, 16 ch x 2^26): shard channels over
-hosts ('wdm' across DCN — embarrassingly parallel, no cross-host
-traffic) and the time axis within each host's slice ('time' over ICI),
-i.e. ``make_link_mesh(n_wdm=n_hosts, n_time=devices_per_host)``.  Keep
-the pencil-FFT ``all_to_all`` on ICI; only scalars cross DCN.
+hosts ('wdm' across the network — embarrassingly parallel, no cross-host
+traffic) and the time axis within each host ('time' over NVLink), i.e.
+``make_link_mesh(n_wdm=n_hosts, n_time=devices_per_host)``.  Keep the
+pencil-FFT ``all_to_all`` inside a host; only scalars cross hosts.
 
-Not exercisable in this container (single chip); the mesh semantics are
-validated on the 8-device virtual CPU mesh (tests/) and the driver's
-``dryrun_multichip``.
+The mesh semantics are tested on the 8-device virtual CPU mesh (tests/)
+and with two CPU processes (tests/test_multihost.py).
 """
 from __future__ import annotations
 
@@ -42,9 +43,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Initialize JAX's distributed runtime (idempotent) and return the
     global device count.
 
-    On Cloud TPU pods all three arguments are discovered from the
-    environment — call with no arguments.  Elsewhere pass the
-    coordinator's ``host:port`` plus this process's index.
+    Pass the coordinator's ``host:port`` (for one host,
+    ``localhost:<free port>``), the number of processes and this
+    process's index; JAX discovers none of them on GPU hosts.
     """
     import jax
 

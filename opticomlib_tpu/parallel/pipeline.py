@@ -7,7 +7,7 @@ batch of ``B`` waveforms (WDM channels, Monte-Carlo shots, parameter
 sweeps) streams through as microbatches:
 
   tick t:  device d propagates microbatch ``m = t - d`` through its span,
-           then ``ppermute``s the field to device ``d+1`` over ICI.
+           then ``ppermute``s the field to device ``d+1``.
 
 After ``B + S - 1`` ticks every microbatch has traversed every span;
 steady-state utilization is ``B / (B + S - 1)``.

@@ -1,6 +1,6 @@
 """Simulation-wide parameters.
 
-TPU-native replacement for the reference's mutable ``gv`` singleton
+JAX replacement for the reference's mutable ``gv`` singleton
 (reference: opticomlib/typing.py:106-388).  The core object is the
 *immutable, hashable* :class:`SimParams` dataclass: because it is frozen it
 can be closed over by (or passed as a static argument to) ``jax.jit``-ted

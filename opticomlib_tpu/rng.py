@@ -3,7 +3,7 @@
 The reference draws every noise realization from NumPy's *global* legacy
 RNG on the host (reference devices.py:485-506, 930-936, 1521-1527) — not
 reproducible across library versions and a host->device transfer per draw.
-The TPU-native design (SURVEY §7.4) uses ``jax.random`` with explicit,
+This package (SURVEY §7.4) uses ``jax.random`` with explicit,
 splittable keys so that
 
 * noise is generated **on-device** (no host RNG + transfer on the hot path),
@@ -34,25 +34,10 @@ KeyLike = Union[int, jax.Array]
 _stream: Optional[jax.Array] = None
 
 
-def _cpu_scope():
-    """Key creation/splitting runs on the in-process CPU backend when one
-    is available: keys are tiny, the host-side stream feeds only the
-    staged devices (the fused programs derive keys in-graph from a
-    traced seed), and on a remote accelerator runtime even the trivial
-    key programs pay a multi-second cold compile round trip.  Large
-    keyed draws still run on the accelerator — the noise kernels move
-    the key to their compute device (runtime/backend.RouteScope.put).
-    One policy for the whole package: :func:`opticomlib_tpu.runtime.
-    backend.cpu_scope` (the devices' split sites use it too)."""
-    from .runtime import backend as _backend
-    return _backend.cpu_scope()
-
-
 def seed(n: int) -> None:
     """Seed the global key stream (also reachable as ``gv(seed=n)``)."""
     global _stream
-    with _cpu_scope():
-        _stream = jax.random.key(int(n))
+    _stream = jax.random.key(int(n))
 
 
 def clear() -> None:
@@ -71,8 +56,7 @@ def next_key() -> jax.Array:
     if _stream is None:
         raise RuntimeError(
             "global RNG stream not seeded; call rng.seed(n) or gv(seed=n)")
-    with _cpu_scope():
-        _stream, sub = jax.random.split(_stream)
+    _stream, sub = jax.random.split(_stream)
     return sub
 
 
@@ -83,8 +67,7 @@ def as_key(key: KeyLike) -> jax.Array:
     a NumPy integer passed through untouched would hit jax.random.split
     with a 'not a PRNG key' error far from the caller."""
     if isinstance(key, (int, np.integer)):
-        with _cpu_scope():
-            return jax.random.key(int(key))
+        return jax.random.key(int(key))
     return key
 
 

@@ -4,7 +4,6 @@ its closest analogues are FIBER's ``return_steps`` trajectory capture and
 lab HDF5 persistence); this subsystem is new capability required for the
 multi-span / multi-host configurations (BASELINE config 4: 20x80 km DBP).
 """
-from .backend import set_small_op_threshold, small_op_threshold
 from .cache import enable_cache, cache_dir
 from .checkpoint import (
     PropagationCheckpointer, span_chain_resumable,
@@ -12,5 +11,4 @@ from .checkpoint import (
 )
 
 __all__ = ["PropagationCheckpointer", "ssfm_propagate_resumable",
-           "span_chain_resumable", "enable_cache", "cache_dir",
-           "set_small_op_threshold", "small_op_threshold"]
+           "span_chain_resumable", "enable_cache", "cache_dir"]

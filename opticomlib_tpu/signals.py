@@ -1,11 +1,11 @@
 """Signal type system: pytree containers with signal/noise dual-track algebra.
 
-TPU-native re-design of the reference data model
+JAX re-design of the reference data model
 (reference: opticomlib/typing.py:402-2427).  Design differences from the
 reference:
 
 * Containers are registered as JAX pytrees, so they flow through ``jax.jit``
-  / ``vmap`` / ``shard_map`` transparently — the TPU replacement for the
+  / ``vmap`` / ``shard_map`` transparently — the JAX replacement for the
   reference's NumPy ``__array_ufunc__`` protocol integration
   (typing.py:518-692, 1224-1306).
 * Arrays inside are whatever the caller provides (NumPy on host, jax.Array on

@@ -1,10 +1,10 @@
 """Numeric/DSP utility functions (host-side analytics).
 
-TPU-native re-design of the reference utility layer
+JAX re-design of the reference utility layer
 (reference: opticomlib/utils.py).  These are *host-side* scalar/ndarray
 analytics — conversions, statistical helpers, response metrology — used for
 configuration, validation and result post-processing.  The hot compute
-kernels live in :mod:`opticomlib_tpu.ops` as JAX/Pallas code; the functions
+kernels live in :mod:`opticomlib_tpu.ops` as JAX code; the functions
 here intentionally stay NumPy so they work on concrete values at trace time
 and in test oracles.
 

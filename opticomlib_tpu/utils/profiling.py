@@ -1,4 +1,4 @@
-"""Profiling hooks: the TPU-native upgrade of the reference's homemade
+"""Profiling hooks: the device-aware upgrade of the reference's homemade
 wall-clock timers (reference utils.py:293-340 — ``tic``/``toc`` brackets
 every device and stores ``execution_time`` on results, which this package
 keeps for API parity).
@@ -21,24 +21,16 @@ def trace(logdir: str) -> Iterator[None]:
     """Capture a device trace for the enclosed block.
 
     View with TensorBoard (``tensorboard --logdir <logdir>``) or load the
-    .trace files into Perfetto.  Falls back to a no-op if the runtime
-    cannot trace (e.g. some remote backends).
+    .trace files into Perfetto.  A runtime that cannot trace raises; the
+    block is never silently run untraced.
     """
     import jax
 
-    try:
-        jax.profiler.start_trace(logdir)
-        started = True
-    except Exception:
-        started = False
+    jax.profiler.start_trace(logdir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        jax.profiler.stop_trace()
 
 
 @contextlib.contextmanager
@@ -52,15 +44,14 @@ def annotate(name: str) -> Iterator[None]:
 
 
 class DeviceTimer:
-    """Wall-clock timer with a forced device sync at both ends.
+    """Wall-clock timer around device work.
 
-    On this runtime ``block_until_ready`` does not reliably synchronize;
-    the sync point is a scalar readback of a jitted reduction, which is
-    what `bench.py` uses.  Use as a context manager::
+    JAX dispatch is asynchronous, so call :meth:`sync` on the outputs
+    before the block ends.  Use as a context manager::
 
         with DeviceTimer() as t:
             out_re, out_im = my_jitted(x_re, x_im)
-            t.sync(out_re)
+            t.sync(out_re, out_im)
         print(t.elapsed)
     """
 
@@ -73,11 +64,12 @@ class DeviceTimer:
         return self
 
     @staticmethod
-    def sync(arr) -> float:
-        """Force completion of the program producing ``arr``."""
-        import jax.numpy as jnp
+    def sync(*arrays):
+        """Wait for the programs producing ``arrays``; returns them."""
+        import jax
 
-        return float(jnp.sum(arr))
+        return jax.block_until_ready(arrays[0] if len(arrays) == 1
+                                     else arrays)
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self._t0

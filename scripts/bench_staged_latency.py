@@ -1,7 +1,6 @@
 """Measure staged-path (drop-in API) wall-clock per device on the default
 backend — the workflow of reference examples/ook_transmission_fiber_simulation.py
-at small N, where per-program compile/dispatch cost dominates on a remote
-accelerator backend.
+at small N, where per-program compile/dispatch cost dominates.
 
 Usage:
     python scripts/bench_staged_latency.py [--cpu] [--json OUT]
@@ -21,8 +20,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true",
                     help="force the in-process CPU backend before any jax use")
-    ap.add_argument("--no-route", action="store_true",
-                    help="disable the small-op CPU router")
     ap.add_argument("--json", default=None)
     ap.add_argument("--N", type=int, default=2**10)
     args = ap.parse_args()
@@ -33,9 +30,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
 
     from opticomlib_tpu import gv
-    if args.no_route:
-        from opticomlib_tpu.runtime import backend
-        backend.set_small_op_threshold(0)
     from opticomlib_tpu.devices import PRBS, DAC, LASER, MZM, FIBER, PD
     from opticomlib_tpu.models import ook
     t_import = time.perf_counter() - t_start
@@ -72,7 +66,7 @@ def main():
 
     if args.json:
         rec = {"N": args.N, "backend": jax.default_backend(),
-               "cpu_forced": args.cpu, "route_disabled": args.no_route,
+               "cpu_forced": args.cpu,
                "import_s": round(t_import, 2), "stages": stages,
                "total_s": round(total, 2), "ber": float(ber)}
         with open(args.json, "a") as f:

@@ -64,9 +64,6 @@ MODULES = {
                                           "capability)"),
     "opticomlib_tpu.runtime.cache": ("Persistent compile cache",
                                      "no counterpart (new capability)"),
-    "opticomlib_tpu.runtime.backend": ("Staged-path backend routing",
-                                       "no counterpart (new "
-                                       "capability)"),
     "opticomlib_tpu.logger": ("Hierarchical logging", "logger.py"),
     "opticomlib_tpu.utils.profiling": ("Profiling hooks",
                                        "utils.py:268-340 (tic/toc)"),

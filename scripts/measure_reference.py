@@ -4,7 +4,7 @@ publishes no numbers; BASELINE.md mandates measuring locally).
 
 Denominator hygiene (VERDICT round-3 #5): NumPy timing on a shared
 container varies with load, and a single-sample denominator made the
-headline ``vs_baseline`` swing 2x round-over-round with the TPU number
+headline ``vs_baseline`` swing 2x round-over-round with the accelerator number
 unchanged.  So this script:
 
 * runs every config ``--reps`` times (default 3), **interleaved**
@@ -102,7 +102,7 @@ def config3(n_sym=2**15, M=8, sps=32):
         gv(sps=sps, R=10e9, N=n_slots, M=M)
         tx = PPM_ENCODER(bits, M)
         v = DAC(tx, Vpp=1, pulse_shape="gaussian")
-        # ~20 mW peak launch — the SAME power as bench.py's config-3 TPU
+        # ~20 mW peak launch — the SAME power as bench.py's config-3 fused
         # chain (P0=16 dBm, 3 dB MZM loss), so the adaptive step counts
         # match and the ratio compares equal work
         x = optical_signal(np.asarray(v.signal) * np.sqrt(0.02))
@@ -111,7 +111,7 @@ def config3(n_sym=2**15, M=8, sps=32):
         DSP(pd, M, decision="soft")
 
     return {"what": "PPM8 chain encoder->DAC->FIBER 20km->PD->soft DSP, "
-                    "20 mW launch (matches the TPU chain)",
+                    "20 mW launch (matches the fused chain)",
             "n_samples": n_slots * sps}, run
 
 

@@ -68,7 +68,7 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _fwd_tpu(E, n_spans, **kw):
+def _fwd_jax(E, n_spans, **kw):
     x = OpticalSignal(E.copy())
     for _ in range(n_spans):
         x = FIBER(x, **SPAN, **kw)
@@ -76,8 +76,8 @@ def _fwd_tpu(E, n_spans, **kw):
     return x
 
 
-def _roundtrip_tpu(E, n_spans, **kw):
-    x = _fwd_tpu(E, n_spans, **kw)
+def _roundtrip_jax(E, n_spans, **kw):
+    x = _fwd_jax(E, n_spans, **kw)
     for _ in range(n_spans):
         x = OpticalSignal(x.to_numpy() / GAIN)
         x = DBP(x, **SPAN, **kw)
@@ -95,7 +95,7 @@ def test_f32_forward_matches_f64_reference_20x80(ref, field):
         a = ref.devices.FIBER(a, **SPAN, **kw)
         a = ref.optical_signal(np.asarray(a.signal) * GAIN)
 
-    b = _fwd_tpu(field, 20, **kw)
+    b = _fwd_jax(field, 20, **kw)
     err = _rel(b.to_numpy().ravel(), np.asarray(a.signal).ravel())
     assert err < 5e-3, f"f32 long-haul divergence too large: {err}"
     ref.gv.default()
@@ -108,8 +108,8 @@ def test_roundtrip_error_is_splitting_not_precision(ref, field):
     ref.gv(sps=SPS, R=10e9, N=N_SLOTS)
     kw = dict(h=1.0)
 
-    rec_tpu = _roundtrip_tpu(field, 20, **kw)
-    err_tpu = _rel(rec_tpu, field)
+    rec_jax = _roundtrip_jax(field, 20, **kw)
+    err_jax = _rel(rec_jax, field)
 
     a = ref.optical_signal(field.copy())
     for _ in range(20):
@@ -122,8 +122,8 @@ def test_roundtrip_error_is_splitting_not_precision(ref, field):
 
     # both schemes share the same O(h^2) splitting error (~0.19 here);
     # f32-vs-f64 shows up only in the 3rd decimal of that error
-    assert err_tpu == pytest.approx(err_ref, rel=0.01)
-    assert err_tpu < 0.25
+    assert err_jax == pytest.approx(err_ref, rel=0.01)
+    assert err_jax < 0.25
     ref.gv.default()
 
 
@@ -133,9 +133,9 @@ def test_roundtrip_error_decays_with_h(field):
     degrades to 1st order under strong per-step dispersion — see
     ops/ssfm.py _strang_step docstring); a float32 precision floor would
     stop scaling.  Measured: 0.0233 / 0.0116 / 0.0058 at h = 2 / 1 / 0.5."""
-    e1 = _rel(_roundtrip_tpu(field, 2, h=2.0), field)
-    e2 = _rel(_roundtrip_tpu(field, 2, h=1.0), field)
-    e3 = _rel(_roundtrip_tpu(field, 2, h=0.5), field)
+    e1 = _rel(_roundtrip_jax(field, 2, h=2.0), field)
+    e2 = _rel(_roundtrip_jax(field, 2, h=1.0), field)
+    e3 = _rel(_roundtrip_jax(field, 2, h=0.5), field)
     assert e2 < 0.7 * e1
     assert e3 < 0.7 * e2
 
@@ -143,6 +143,6 @@ def test_roundtrip_error_decays_with_h(field):
 def test_o4_roundtrip_beats_reference_scheme(field):
     """Beyond parity: the 4th-order Yoshida composition cuts the
     round-trip error >10x at equal h (2 spans to keep runtime low)."""
-    e_ref_scheme = _rel(_roundtrip_tpu(field, 2, h=1.0), field)
-    e_o4 = _rel(_roundtrip_tpu(field, 2, h=1.0, method="o4"), field)
+    e_ref_scheme = _rel(_roundtrip_jax(field, 2, h=1.0), field)
+    e_o4 = _rel(_roundtrip_jax(field, 2, h=1.0, method="o4"), field)
     assert e_o4 < e_ref_scheme / 10

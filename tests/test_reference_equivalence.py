@@ -45,12 +45,12 @@ def ref():
 @pytest.fixture()
 def both_gv(ref):
     """Set identical simulation parameters in both packages."""
-    from opticomlib_tpu import gv as tpu_gv
+    from opticomlib_tpu import gv as jax_gv
 
     def setter(**kw):
         ref.gv(**kw)
-        tpu_gv(**kw)
-        return ref.gv, tpu_gv
+        jax_gv(**kw)
+        return ref.gv, jax_gv
 
     yield setter
     ref.gv.default()
@@ -61,19 +61,19 @@ def both_gv(ref):
 def test_prbs_bitstreams_match(ref, both_gv, order):
     both_gv(sps=2, R=1e9)
     n = min(2 ** order - 1, 2000)
-    from opticomlib_tpu.devices import PRBS as PRBS_tpu
+    from opticomlib_tpu.devices import PRBS as PRBS_jax
     a = ref.devices.PRBS(order=order, len=n)
-    b = PRBS_tpu(order=order, len=n)
+    b = PRBS_jax(order=order, len=n)
     np.testing.assert_array_equal(np.asarray(a.data), np.asarray(b.data))
 
 
 def test_prbs_seed_continuation_matches(ref, both_gv):
     both_gv(sps=2, R=1e9)
-    from opticomlib_tpu.devices import PRBS as PRBS_tpu
+    from opticomlib_tpu.devices import PRBS as PRBS_jax
     a1, s_ref = ref.devices.PRBS(order=9, len=100, return_seed=True)
-    b1, s_tpu = PRBS_tpu(order=9, len=100, return_seed=True)
+    b1, s_jax = PRBS_jax(order=9, len=100, return_seed=True)
     a2 = ref.devices.PRBS(order=9, len=100, seed=s_ref)
-    b2 = PRBS_tpu(order=9, len=100, seed=s_tpu)
+    b2 = PRBS_jax(order=9, len=100, seed=s_jax)
     np.testing.assert_array_equal(np.asarray(a2.data), np.asarray(b2.data))
 
 
@@ -86,12 +86,12 @@ def test_prbs_seed_continuation_matches(ref, both_gv):
 def test_dac_waveforms_match(ref, both_gv, shape, kw):
     both_gv(sps=16, R=1e9, N=32)
     bits = [0, 1, 1, 0, 1, 0, 0, 1] * 4
-    from opticomlib_tpu.devices import DAC as DAC_tpu
+    from opticomlib_tpu.devices import DAC as DAC_jax
     try:
         a = ref.devices.DAC(bits, Vpp=2.0, pulse_shape=shape, **kw)
     except Exception as e:
         pytest.skip(f"reference DAC rejects shape {shape}: {e}")
-    b = DAC_tpu(bits, Vpp=2.0, pulse_shape=shape, **kw)
+    b = DAC_jax(bits, Vpp=2.0, pulse_shape=shape, **kw)
     np.testing.assert_allclose(np.asarray(b.signal).real,
                                np.asarray(a.signal).real,
                                atol=2e-5 * np.max(np.abs(a.signal)))
@@ -108,9 +108,9 @@ def test_mzm_transfer_matches(ref, both_gv):
     a = ref.devices.MZM(ref.optical_signal(E.astype(complex)),
                         ref.electrical_signal(drive), bias=-2.5, Vpi=5,
                         loss_dB=3, ER_dB=26)
-    from opticomlib_tpu.devices import MZM as MZM_tpu
+    from opticomlib_tpu.devices import MZM as MZM_jax
     from opticomlib_tpu.signals import ElectricalSignal, OpticalSignal
-    b = MZM_tpu(OpticalSignal(E.astype(complex)), ElectricalSignal(drive),
+    b = MZM_jax(OpticalSignal(E.astype(complex)), ElectricalSignal(drive),
                 bias=-2.5, Vpi=5, loss_dB=3, ER_dB=26)
     np.testing.assert_allclose(np.asarray(b.signal).ravel(),
                                np.asarray(a.signal).ravel(), atol=1e-6)
@@ -123,9 +123,9 @@ def test_pm_transfer_matches(ref, both_gv):
     E = np.ones(n, complex)
     a = ref.devices.PM(ref.optical_signal(E), ref.electrical_signal(drive),
                        Vpi=5)
-    from opticomlib_tpu.devices import PM as PM_tpu
+    from opticomlib_tpu.devices import PM as PM_jax
     from opticomlib_tpu.signals import ElectricalSignal, OpticalSignal
-    b = PM_tpu(OpticalSignal(E), ElectricalSignal(drive), Vpi=5)
+    b = PM_jax(OpticalSignal(E), ElectricalSignal(drive), Vpi=5)
     np.testing.assert_allclose(np.asarray(b.signal).ravel(),
                                np.asarray(a.signal).ravel(), atol=1e-6)
 
@@ -136,9 +136,9 @@ def test_dm_matches(ref, both_gv):
     rng = np.random.default_rng(0)
     E = (rng.normal(size=2048) + 1j * rng.normal(size=2048)) * 0.01
     a = ref.devices.DM(ref.optical_signal(E), D=800.0)
-    from opticomlib_tpu.devices import DM as DM_tpu
+    from opticomlib_tpu.devices import DM as DM_jax
     from opticomlib_tpu.signals import OpticalSignal
-    b = DM_tpu(OpticalSignal(E), D=800.0)
+    b = DM_jax(OpticalSignal(E), D=800.0)
     sa = np.asarray(a.signal).ravel()
     sb = np.asarray(b.signal).ravel()
     np.testing.assert_allclose(sb, sa, atol=2e-4 * np.max(np.abs(sa)))
@@ -155,9 +155,9 @@ def test_fiber_deterministic_waveform_matches(ref, both_gv):
 
     a = ref.devices.FIBER(ref.optical_signal(E), length=20, alpha=0.2,
                           beta_2=-20, gamma=1.3, h=0.2)
-    from opticomlib_tpu.devices import FIBER as FIBER_tpu
+    from opticomlib_tpu.devices import FIBER as FIBER_jax
     from opticomlib_tpu.signals import OpticalSignal
-    b = FIBER_tpu(OpticalSignal(E), length=20, alpha=0.2, beta_2=-20,
+    b = FIBER_jax(OpticalSignal(E), length=20, alpha=0.2, beta_2=-20,
                   gamma=1.3, h=0.2)
     sa = np.asarray(a.signal).ravel()
     sb = np.asarray(b.signal).ravel()
@@ -173,12 +173,12 @@ def test_ppm_encode_decode_match(ref, both_gv, M):
     rng = np.random.default_rng(2)
     bits = rng.integers(0, 2, 20 * k)
     a_enc = ref.ppm.PPM_ENCODER(bits, M)
-    from opticomlib_tpu.models import ppm as ppm_tpu
-    b_enc = ppm_tpu.PPM_ENCODER(bits, M)
+    from opticomlib_tpu.models import ppm as ppm_jax
+    b_enc = ppm_jax.PPM_ENCODER(bits, M)
     np.testing.assert_array_equal(np.asarray(a_enc.data),
                                   np.asarray(b_enc.data))
     a_dec = ref.ppm.PPM_DECODER(np.asarray(a_enc.data), M)
-    b_dec = ppm_tpu.PPM_DECODER(np.asarray(b_enc.data), M)
+    b_dec = ppm_jax.PPM_DECODER(np.asarray(b_enc.data), M)
     np.testing.assert_array_equal(np.asarray(a_dec.data),
                                   np.asarray(b_dec.data))
     np.testing.assert_array_equal(np.asarray(a_dec.data), bits)
@@ -220,10 +220,10 @@ def test_noise_variances_and_pase_match(ref, both_gv):
     mu_ref, _ = ru.average_voltages(P_avg=-20.0, modulation="ppm", M=16,
                                     ER=26.0, amplify=True, G=20.0, NF=5.0,
                                     BW_opt=50e9)
-    mu_tpu, _ = tt.average_voltages(P_avg=-20.0, modulation="ppm", M=16,
+    mu_jax, _ = tt.average_voltages(P_avg=-20.0, modulation="ppm", M=16,
                                     ER=26.0, amplify=True, G=20.0, NF=5.0,
                                     BW_opt=50e9)
-    np.testing.assert_allclose(mu_tpu, mu_ref, rtol=1e-9)
+    np.testing.assert_allclose(mu_jax, mu_ref, rtol=1e-9)
 
 
 def test_pulse_and_upfir_match(ref, both_gv):

@@ -40,11 +40,11 @@ def ref():
 
 @pytest.fixture()
 def both_gv(ref):
-    from opticomlib_tpu import gv as tpu_gv
+    from opticomlib_tpu import gv as jax_gv
 
     def setter(**kw):
         ref.gv(**kw)
-        tpu_gv(**kw)
+        jax_gv(**kw)
 
     yield setter
     ref.gv.default()
@@ -63,8 +63,8 @@ def test_get_eye_statistics_match(ref, both_gv):
     both_gv(sps=32, R=1e9, N=512)
     _, x = _noisy_ook()
     a = ref.devices.GET_EYE(ref.electrical_signal(x), nslots=256)
-    from opticomlib_tpu.devices import GET_EYE as GET_EYE_tpu
-    b = GET_EYE_tpu(x, nslots=256)
+    from opticomlib_tpu.devices import GET_EYE as GET_EYE_jax
+    b = GET_EYE_jax(x, nslots=256)
 
     assert abs(b.mu0 - a.mu0) < 0.03
     assert abs(b.mu1 - a.mu1) < 0.03
@@ -86,8 +86,8 @@ def test_lpf_output_matches_on_bandlimited_signal(ref, both_gv):
     rng = np.random.default_rng(5)
     x = rng.normal(size=256 * 32)
     a = ref.devices.LPF(ref.electrical_signal(x), BW=2e9)
-    from opticomlib_tpu.devices import LPF as LPF_tpu
-    b = LPF_tpu(x, BW=2e9)
+    from opticomlib_tpu.devices import LPF as LPF_jax
+    b = LPF_jax(x, BW=2e9)
     sa = np.asarray(a.signal).real
     sb = np.asarray(b.signal).real
     m = slice(2000, -2000)  # exclude edge transients (different padding)
@@ -101,8 +101,8 @@ def test_adc_matches(ref, both_gv):
     rng = np.random.default_rng(6)
     x = rng.normal(size=4096)
     a = ref.devices.ADC(ref.electrical_signal(x), n=6)
-    from opticomlib_tpu.devices import ADC as ADC_tpu
-    b = ADC_tpu(x, n=6)
+    from opticomlib_tpu.devices import ADC as ADC_jax
+    b = ADC_jax(x, n=6)
     sa = np.asarray(a.signal).real
     sb = np.asarray(b.signal).real
     # same robust range estimate + same grid -> at most occasional one-level
@@ -117,9 +117,9 @@ def test_edfa_deterministic_gain_matches(ref, both_gv):
     E = 0.01 * np.ones(1024, complex)
     # BW must stay below gv.fs/2 = 8 GHz for the reference's digital BPF
     a = ref.devices.EDFA(ref.optical_signal(E), G=20, NF=5, BW=5e9)
-    from opticomlib_tpu.devices import EDFA as EDFA_tpu
+    from opticomlib_tpu.devices import EDFA as EDFA_jax
     from opticomlib_tpu.signals import OpticalSignal
-    b = EDFA_tpu(OpticalSignal(E), G=20, NF=5, BW=5e9)
+    b = EDFA_jax(OpticalSignal(E), G=20, NF=5, BW=5e9)
     # deterministic part: field gain 10^(G/20); noise tracks are random
     # draws (different RNGs) — compare the signal track and the ASE power
     np.testing.assert_allclose(np.asarray(b.signal).ravel(),
@@ -132,8 +132,8 @@ def test_edfa_deterministic_gain_matches(ref, both_gv):
 def test_laser_deterministic_matches(ref, both_gv):
     both_gv(sps=16, R=1e9, N=64)
     a = ref.devices.LASER(P0=5)
-    from opticomlib_tpu.devices import LASER as LASER_tpu
-    b = LASER_tpu(P0=5)
+    from opticomlib_tpu.devices import LASER as LASER_jax
+    b = LASER_jax(P0=5)
     np.testing.assert_allclose(np.asarray(b.signal).ravel(),
                                np.asarray(a.signal).ravel(), rtol=1e-6)
 
@@ -141,13 +141,13 @@ def test_laser_deterministic_matches(ref, both_gv):
 # ------------------------------------------------------------------- FBG
 def test_fbg_reflectivity_matches(ref, both_gv):
     both_gv(sps=64, R=10e9, N=128, wavelength=1550e-9)
-    from opticomlib_tpu.devices import FBG as FBG_tpu
+    from opticomlib_tpu.devices import FBG as FBG_jax
 
     kw = dict(fc=ref.gv.f0, vdneff=1e-4, kL=2.0, apodization="uniform",
               print_params=False, filtfilt=False, retH=True)
     _, Ha = ref.devices.FBG(ref.optical_signal(np.ones(64 * 128, complex)),
                             **kw)
-    _, Hb = FBG_tpu(__import__("opticomlib_tpu").optical_signal(
+    _, Hb = FBG_jax(__import__("opticomlib_tpu").optical_signal(
         np.ones(64 * 128, complex)), **kw)
     Ha = np.asarray(Ha).ravel()
     Hb = np.asarray(Hb).ravel()
@@ -164,8 +164,8 @@ def test_ook_dsp_same_input_same_bits(ref, both_gv):
 
     ra = ref.ook.DSP(ref.electrical_signal(x))
     a_bits, _, a_rth = ra
-    from opticomlib_tpu.models import ook as ook_tpu
-    b_bits, _, b_rth = ook_tpu.DSP(
+    from opticomlib_tpu.models import ook as ook_jax
+    b_bits, _, b_rth = ook_jax.DSP(
         __import__("opticomlib_tpu").electrical_signal(x))
 
     assert abs(a_rth - b_rth) < 0.1

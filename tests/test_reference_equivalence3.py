@@ -33,11 +33,11 @@ def ref():
 
 @pytest.fixture()
 def both_gv(ref):
-    from opticomlib_tpu import gv as tpu_gv
+    from opticomlib_tpu import gv as jax_gv
 
     def setter(**kw):
         ref.gv(**kw)
-        tpu_gv(**kw)
+        jax_gv(**kw)
 
     yield setter
     ref.gv.default()
@@ -185,8 +185,8 @@ def test_sync_matches(ref, both_gv):
     rx = np.roll(wave, 517) + 0.02 * rng.normal(size=wave.size)
 
     a_sync, a_i = ref.lab.SYNC(rx, bits, sps=8)
-    from opticomlib_tpu import lab as lab_tpu
-    b_sync, b_i = lab_tpu.SYNC(rx, bits, sps=8)
+    from opticomlib_tpu import lab as lab_jax
+    b_sync, b_i = lab_jax.SYNC(rx, bits, sps=8)
     assert a_i == b_i == 517
     np.testing.assert_allclose(np.asarray(b_sync.signal).real,
                                np.asarray(a_sync.signal).real, atol=1e-9)
@@ -201,8 +201,8 @@ def test_get_eye_v2_matches(ref, both_gv):
     x = np.repeat(bits.astype(float), 16) + 0.05 * rng.normal(size=256 * 16)
 
     a = ref.lab.GET_EYE_v2(ref.electrical_signal(x), bits)
-    from opticomlib_tpu import lab as lab_tpu
-    b = lab_tpu.GET_EYE_v2(x, bits)
+    from opticomlib_tpu import lab as lab_jax
+    b = lab_jax.GET_EYE_v2(x, bits)
     assert abs(b.mu0 - a.mu0) < 0.02
     assert abs(b.mu1 - a.mu1) < 0.02
     assert abs(b.s0 - a.s0) < 0.02

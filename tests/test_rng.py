@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from opticomlib_tpu import gv, rng
-from opticomlib_tpu.devices import EDFA, LASER, PD
+from opticomlib_tpu.devices import EDFA, FIBER, LASER, PD
 from opticomlib_tpu.signals import OpticalSignal
 from opticomlib_tpu.utils.theory import p_ase
 from opticomlib_tpu.utils.analysis import idb, idbm
@@ -128,3 +128,61 @@ def test_numpy_integer_seed_coerced():
     k1 = rng_mod.as_key(np.uint32(42))
     k2 = rng_mod.as_key(42)
     assert jax.random.uniform(k1) == jax.random.uniform(k2)
+
+
+# --------------------------------------------------- placement of staged work
+def test_keys_live_on_default_device():
+    """Key creation and splitting run on the default device (no routing
+    to another backend)."""
+    rng.seed(3)
+    try:
+        keys = [rng.next_key(), rng.as_key(5), rng.resolve(None)]
+    finally:
+        rng.clear()
+    for k in keys:
+        assert k.devices() == {jax.devices()[0]}
+
+
+def _capture(monkeypatch, module, name):
+    """Wrap a jitted kernel so the devices of its outputs are recorded."""
+    seen = []
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        for leaf in jax.tree_util.tree_leaves(out):
+            seen.append(leaf.devices())
+        return out
+
+    monkeypatch.setattr(module, name, wrapped)
+    return seen
+
+
+STAGED_KERNELS = {
+    "fiber_adaptive": ("ssfm", "_ssfm_loop",
+                       lambda x: FIBER(x, length=10, alpha=0.2, beta_2=-20,
+                                       gamma=2)),
+    "fiber_fixed": ("ssfm", "_ssfm_scan",
+                    lambda x: FIBER(x, length=10, alpha=0.2, beta_2=-20,
+                                    gamma=2, h=1.0)),
+    "laser_phase": ("noise", "_wiener",
+                    lambda x: LASER(P0=0, lw=1e6, key=2)),
+    "pd_noise": ("noise", "_gaussian",
+                 lambda x: PD(x, BW=7.5e9, include_noise="thermal-only",
+                              key=4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STAGED_KERNELS))
+def test_staged_kernels_run_on_default_device(monkeypatch, name):
+    """Small staged waveforms (2^10 samples here) compute on the default
+    device: no size threshold sends them elsewhere."""
+    from opticomlib_tpu.ops import noise, ssfm
+
+    mod_name, fn_name, call = STAGED_KERNELS[name]
+    seen = _capture(monkeypatch, {"ssfm": ssfm, "noise": noise}[mod_name],
+                    fn_name)
+    gv(sps=16, R=10e9, N=2**6)
+    x = OpticalSignal((np.ones(2**10) * 0.1).astype(complex))
+    call(x)
+    assert seen and all(d == {jax.devices()[0]} for d in seen)

@@ -151,13 +151,29 @@ def test_span_chain_resumable_bitexact(tmp_path):
     np.testing.assert_array_equal(resumed, full)
 
 
-def test_enable_cache_env_handling(tmp_path, monkeypatch):
-    """on/off-style env values select/refuse the default dir; a path
-    value becomes the cache dir (round-3 review fix)."""
+@pytest.fixture
+def restore_cache_config():
+    """Put the process-wide cache settings back after a test moves them."""
     import jax
 
     from opticomlib_tpu.runtime import cache as rc
 
+    saved = (jax.config.jax_compilation_cache_dir, rc._enabled_dir)
+    yield
+    jax.config.update("jax_compilation_cache_dir", saved[0])
+    rc._enabled_dir = saved[1]
+
+
+def test_enable_cache_env_handling(tmp_path, monkeypatch,
+                                   restore_cache_config):
+    """on/off-style env values select/refuse the default dir; a path
+    value becomes the cache dir (round-3 review fix).  JAX's own
+    variable is unset here; it wins over all of these (next test)."""
+    import jax
+
+    from opticomlib_tpu.runtime import cache as rc
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     d = tmp_path / "xla"
     monkeypatch.setattr(rc, "DEFAULT_CACHE_DIR", str(tmp_path / "default"))
 
@@ -239,3 +255,63 @@ def test_resumable_rejects_different_frequency_grid(tmp_path):
     with pytest.raises(ValueError, match="different"):
         ssfm_propagate_resumable(A, w2, 2.0, d, 1.0, alpha=0.2,
                                  beta_2=-21.0, gamma=1.3, h=0.5)
+
+
+def test_jax_cache_env_wins_over_enable_cache(tmp_path, monkeypatch,
+                                              restore_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, no argument or package
+    variable moves the cache elsewhere, and the package's opt-out does
+    not turn it off."""
+    import jax
+
+    from opticomlib_tpu.runtime import cache as rc
+
+    env_dir = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    monkeypatch.setenv("OPTICOMLIB_TPU_CACHE", str(tmp_path / "pkg"))
+    assert rc.enable_cache(str(tmp_path / "arg")) == env_dir
+    assert rc.enable_cache() == env_dir
+    assert jax.config.jax_compilation_cache_dir == env_dir
+    assert rc.cache_dir() == env_dir
+    assert not (tmp_path / "arg").exists()
+    assert not (tmp_path / "pkg").exists()
+
+    calls = []
+    monkeypatch.setattr(rc, "enable_cache", lambda *a, **k: calls.append(1))
+    monkeypatch.setenv("OPTICOMLIB_TPU_CACHE", "0")
+    rc._maybe_enable_from_env()
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("entry", ["bench.py", "chip_smoke.py"])
+def test_entry_points_keep_jax_cache_env(tmp_path, entry):
+    """bench.py and chip_smoke.py set no cache directory of their own:
+    they only import the package, which keeps JAX_COMPILATION_CACHE_DIR."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(root, entry)).read()
+    assert "enable_cache(" not in src
+    assert "compilation_cache_dir" not in src
+    env_dir = str(tmp_path / "jaxcache")
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=env_dir,
+               JAX_PLATFORMS="cpu", OPTICOMLIB_TPU_CACHE="0")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, opticomlib_tpu as o; "
+         "print(jax.config.jax_compilation_cache_dir); print(o.cache_dir())"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [env_dir, env_dir]
+
+
+def test_default_cache_dir_is_fixed_inside_checkout():
+    """Unset JAX_COMPILATION_CACHE_DIR: the cache lives at <repo>/.jax_cache,
+    a fixed path listed in .gitignore."""
+    from opticomlib_tpu.runtime import cache as rc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert rc.DEFAULT_CACHE_DIR == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -195,3 +195,26 @@ def test_profiling_hooks():
         y = jnp.arange(64.0) ** 2
         t.sync(y)
     assert t.elapsed is not None and t.elapsed >= 0
+
+
+def test_profiling_trace_raises_when_tracing_fails():
+    """A trace that cannot start raises instead of silently running the
+    block untraced (here: a second trace while one is active)."""
+    import tempfile
+
+    import jax
+
+    from opticomlib_tpu.utils.profiling import trace
+
+    ran = []
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        with trace(d1):
+            with pytest.raises(RuntimeError):
+                with trace(d2):
+                    ran.append(1)
+    assert not ran
+    # the outer trace was stopped cleanly: a new one can start
+    with tempfile.TemporaryDirectory() as d3:
+        with trace(d3):
+            jax.numpy.ones(4).block_until_ready()
